@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch + CUDA port (svt_av1_psy_tpu_torch).
+
+    python3 chip_smoke.py            # from the root of a checkout, one GPU
+
+Phases, each failing with a non-zero exit:
+  1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
+     which native host libraries (mc, walk, ec, dav1d) this machine has;
+  2. builds the four kernels (nvcc, sm_90a) and prints each build's seconds
+     and its ptxas registers / spills;
+  3. holds each kernel against its plain PyTorch version on the card, at the
+     480p preset-10 shapes of the main path, with seeded inputs, and times
+     both with CUDA events:
+       K1 intra search  identical modes and tx, except blocks whose two best
+                        costs are within 1e-5 relative (counted); also S 8 and
+                        S 64 with 5 tx types
+       K2 SSD grids     exact
+       K3 inter decide  rows exact, at (32, 32) and at every rect shape
+       K4 TF            |delta| <= 1 with >= 99.9 % of pixels equal
+  4. encodes the bench clip (854x480, 24 frames, preset 10, CRF 35) through
+     Encoder(cfg, device="cuda"), prints fps, kbps, PSNR-Y and device_frac,
+     checks that K1-K4 each launched, checks dav1d conformance where dav1d
+     exists, and re-encodes the first 9 frames on the card and with
+     device="cpu" (plain versions) to compare size, PSNR and decision rows.
+
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. jax is blocked: the port must not need it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.modules["jax"] = None          # importing jax anywhere now fails
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+# ------------------------------------------------------------------ phase 3
+def check_k1(dev, frame, bd=8, cases=((16, 1), (32, 1), (8, 5), (64, 5))):
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu.bitstream.frame_context import _coeff_qctx
+    from svt_av1_psy_tpu.codec.constants import TxType
+    from svt_av1_psy_tpu_torch.codec import intra_rdo as IR
+    from svt_av1_psy_tpu_torch.ops import intra_search as K
+
+    q = 140
+    ph, pw = -(-frame.shape[0] // 64) * 64, -(-frame.shape[1] // 64) * 64
+    pad = np.pad(frame, ((0, ph - frame.shape[0]), (0, pw - frame.shape[1])),
+                 mode="edge").astype(np.uint16)
+    lam = float(np.float32(IR.lambda_sse_per_bit(q, bd, "kf")))
+    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    for S, n_tx in cases:
+        refs = IR._block_refs(pad, S, bd)
+        N = refs.shape[0]
+        blocks = (pad.reshape(ph // S, S, pw // S, S).transpose(0, 2, 1, 3)
+                  .reshape(N, S, S).astype(np.float32))
+        qdc, qac = IR._qsteps_for_blocks(ph // S, pw // S, S, q, None, 0, bd)
+        npad = max(256, 1 << int(np.ceil(np.log2(N))))
+        tb, n = IR._cached_tables(S, _coeff_qctx(q),
+                                  (8, 16) if n_tx > 1 else (), None)
+        if n != n_tx:      # S 64 with 5 tx bases: synthetic DCT/IDTX set
+            tb = dict(tb)
+            tt = (TxType.DCT_DCT, TxType.IDTX) * 2 + (TxType.DCT_DCT,)
+            tb["tvs"] = np.stack([K.tx_pair(t, S)[0] for t in tt])
+            tb["ths"] = np.stack([K.tx_pair(t, S)[1] for t in tt])
+            tb["scans_tx"] = np.stack([tb["scan2d"]] * 5)
+            tb["ext_tx_bits"] = np.arange(5, dtype=np.float32)
+        t = K.tables_to_torch(tb, dev)
+
+        def padn(a, fill):
+            extra = np.full((npad - N,) + a.shape[1:], fill, np.float32)
+            return torch.from_numpy(np.concatenate([a, extra])).to(dev)
+
+        args = (padn(blocks, 0), padn(refs, 0), padn(qdc, 1), padn(qac, 1),
+                lam, t["G"], t["scan2d"], t["scans_tx"], t["tvs"], t["ths"],
+                t["level_bits"], t["eob_bits"], t["txb_skip"],
+                t["y_mode_bits"], t["ext_tx_bits"], t["qm_w"], t["dist_w"],
+                t["tx_lam_scale"])
+        kw = dict(S=S, n_tx=n_tx)
+        k = K.search_block_batch(*args, **kw)
+        p = K.search_block_batch_ref(*args, **kw)
+        torch.cuda.synchronize()
+        costs, _ = K.mode_costs_ref(*args[:7], args[8], *args[10:14],
+                                    args[15], args[16], S)
+        two = costs.sort(1).values[:, :2]
+        tie = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].abs()
+        bad = ((k[0] != p[0]) | (k[1] != p[1])) & ~tie
+        err = float((k[2] - p[2]).abs().max())
+        print(f"  K1 {bd}-bit S={S:2d} n_tx={n_tx} N={npad}: mode/tx mismatches "
+              f"{int(((k[0] != p[0]) | (k[1] != p[1])).sum())} "
+              f"(near-ties {int(tie.sum())}, outside ties {int(bad.sum())}), "
+              f"max |d cost| {err:.3g}")
+        if int(bad.sum()):
+            fail(f"K1 disagrees with its plain version at S={S}")
+        if bd == 8 and (S, n_tx) in ((16, 1), (32, 1)):   # the main path
+            worst = max(worst, err)
+            ms += cuda_ms(lambda: K.search_block_batch(*args, **kw), 20)
+            plain_ms += cuda_ms(lambda: K.search_block_batch_ref(*args, **kw), 3)
+    return worst, ms, plain_ms
+
+
+def check_inter(dev, frames, bd=8, shapes=None):
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu_torch.ops import inter_search as I
+
+    Hp, Wp = I.pad_dims(*frames[0].shape)
+    src, _ = I.prep_frame(I.upload_plane(frames[2], dev), Hp, Wp)
+    ref_l = I.prep_frame(I.upload_plane(frames[0], dev), Hp, Wp)[1]
+    ref_a = I.prep_frame(I.upload_plane(frames[4], dev), Hp, Wp)[1]
+    gk = I.grids_stage(src, ref_l)
+    gp = I.grids_stage_ref(src, ref_l)
+    torch.cuda.synchronize()
+    k2_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(gk, gp))
+    print(f"  K2 {bd}-bit grids 480p: max |d| {k2_err} over centres and "
+          f"{gk[2].numel()} child SSDs")
+    if k2_err:
+        fail("K2 disagrees with its plain version")
+    k2_ms = cuda_ms(lambda: I.grids_stage(src, ref_l), 10)
+    k2_plain = cuda_ms(lambda: I.grids_stage_ref(src, ref_l), 2)
+    ga = I.grids_stage(src, ref_a)
+    pvec = torch.tensor([1.0, -2.0, 37.5, 1.0, 100.0], device=dev)
+    k3_err, k3_ms, k3_plain = 0.0, 0.0, 0.0
+    for (w, h) in shapes or I.shapes_for(I.DEPTHS, rect=True):
+        for two in (True, False):
+            a = (src, ref_l, ref_a, *gk, *ga, pvec)
+            kw = dict(BW=w, BH=h, two_ref=two, bd=bd)
+            rk, ck = I.depth_stage(*a, **kw)
+            rp, cp = I.depth_stage_ref(*a, **kw)
+            torch.cuda.synchronize()
+            rows_bad = int((rk != rp).any(1).sum())
+            cerr = float((ck - cp).abs().max())
+            print(f"  K3 {bd}-bit {w}x{h} two_ref={int(two)}: rows differing "
+                  f"{rows_bad}/{rk.shape[0]}, max |d cost| {cerr:.3g}")
+            if rows_bad:
+                fail(f"K3 rows disagree at {w}x{h}")
+            if (w, h) == (32, 32):                # the main path's shape
+                k3_err = max(k3_err, cerr)
+                k3_ms += cuda_ms(lambda: I.depth_stage(*a, **kw), 20)
+                k3_plain += cuda_ms(lambda: I.depth_stage_ref(*a, **kw), 3)
+    return (k2_err, k2_ms, k2_plain), (k3_err, k3_ms / 2, k3_plain / 2)
+
+
+def tf_agreement(dev, center, nbrs, bd):
+    """K2 + K4 on the card against the plain versions on the host."""
+    import numpy as np
+
+    from svt_av1_psy_tpu_torch.ops import tf as T
+
+    out_k = T.temporal_filter_device(center, nbrs, 1, bd, device=dev)
+    out_p = T.temporal_filter_device(center, nbrs, 1, bd, device="cpu")
+    worst, eq = 0, 1.0
+    for a, b in zip(out_k, out_p):
+        if a is None:
+            continue
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        worst = max(worst, int(d.max()))
+        eq = min(eq, float((d == 0).mean()))
+    print(f"  K4 {bd}-bit TF {center[0].shape[1]}x{center[0].shape[0]}, "
+          f"{len(nbrs)} neighbours"
+          f"{'' if center[1] is not None else ', mono'}: max |d| {worst}, "
+          f"equal share {eq:.6f}")
+    if worst > 1 or eq < 0.999:
+        fail("K4 disagrees with its plain version")
+    return worst
+
+
+def check_k4(dev, frames, u, v):
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu_torch.ops import inter_search as I
+    from svt_av1_psy_tpu_torch.ops import tf as T
+
+    worst = tf_agreement(dev, (frames[3], u, v),
+                         [(frames[i], u, v) for i in (0, 1, 2, 4, 5, 6)], 8)
+    # timed: one neighbour's luma and chroma stages, plus the finalize of
+    # all three planes over 6 neighbours
+    H, W = frames[0].shape
+    Hc, Wc = u.shape
+    Hp, Wp = I.pad_dims(H, W)
+    src = I.prep_frame(I.upload_plane(frames[3], dev), Hp, Wp)[0]
+    ref = I.prep_ref(I.upload_plane(frames[4], dev), Hp, Wp)
+    cu = I.prep_frame(I.upload_plane(u, dev), Hp // 2, Wp // 2)[0]
+    ru = I.prep_ref(I.upload_plane(u, dev), Hp // 2, Wp // 2)
+    g = I.grids_stage(src, ref)
+    preds, preds_c = torch.stack([src] * 6), torch.stack([cu] * 6)
+    ws, ws_c = torch.full_like(preds, 8.0), torch.full_like(preds_c, 8.0)
+
+    def run(pair, chroma, fin):
+        pr, w, my, mx = pair(src, ref, *g, 50.0, H, W)
+        chroma(cu, cu, ru, ru, my, mx, w, 40.0, Hc, Wc)
+        fin(src, preds, ws, H, W)
+        for _ in range(2):
+            fin(cu, preds_c, ws_c, Hc, Wc)
+
+    ms = cuda_ms(lambda: run(T.tf_pair_stage, T.tf_chroma_stage,
+                             T.tf_finalize_stage), 20)
+    plain = cuda_ms(lambda: run(T.tf_pair_stage_ref, T.tf_chroma_stage_ref,
+                                T.tf_finalize_stage_ref), 3)
+    return worst, ms, plain
+
+
+# ------------------------------------------------------------------ phase 4
+def encode(frames, u, v, device, n):
+    import numpy as np
+
+    from svt_av1_psy_tpu.config import EncoderConfig
+    from svt_av1_psy_tpu_torch.api import Encoder
+
+    H, W = frames[0].shape
+    cfg = EncoderConfig(width=W, height=H, preset=10, stat_report=True,
+                        recon_enabled=True)
+    cfg.qp = 35
+    enc = Encoder(cfg, device=device).init()
+    pkts = []
+    for i in range(n):
+        enc.send_picture(frames[i], u, v.copy())
+        while (p := enc.get_packet()) is not None:
+            pkts.append(p)
+    enc.flush()
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    if enc._me_pipe is not None:
+        enc._me_pipe.drain()
+    stream = b"".join(p.data for p in pkts)
+    psnr = [p.stats["psnr_y"] for p in pkts if p.stats]
+    return stream, pkts, float(np.mean(psnr)) if psnr else float("nan")
+
+
+def main():
+    sys.path.insert(0, HERE)
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a card")
+    try:
+        import numpy as np
+
+        import svt_av1_psy_tpu_torch  # noqa: F401
+        from bench import _video
+    except ImportError as e:
+        fail(f"the repository is not beside this script ({e})")
+    from svt_av1_psy_tpu import profiling
+    from svt_av1_psy_tpu.bitstream import ec_native
+    from svt_av1_psy_tpu.codec import mc_native, walk_native
+    from svt_av1_psy_tpu.io import dav1d
+    from svt_av1_psy_tpu_torch import device as D
+    from svt_av1_psy_tpu_torch.ops import _build
+    from svt_av1_psy_tpu_torch.ops import inter_search as I
+    from svt_av1_psy_tpu_torch.ops import intra_search as K
+    from svt_av1_psy_tpu_torch.ops import tf as T
+    from svt_av1_psy_tpu_torch.parallel import pipeline as PL
+
+    # ---- phase 1
+    card = smi()
+    dev = D.resolve("cuda")
+    print(f"[1] card: {card}; torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+    have_dav1d = dav1d.available()
+    print(f"    native: mc {mc_native.available()} walk "
+          f"{walk_native.available()} ec {ec_native.available()} dav1d "
+          f"{have_dav1d}", flush=True)
+
+    # ---- phase 2
+    t0 = time.perf_counter()
+    info = _build.build_all()
+    print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s (sm_90a)")
+    for name, b in info.items():
+        regs = [ln.strip().replace("ptxas info    : ", "")
+                for ln in b["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln or "entry function" in ln]
+        print(f"    {name}: {b['seconds']:.1f} s{' (cached)' if b['cached'] else ''}")
+        for ln in regs:
+            print(f"      {ln}")
+    sys.stdout.flush()
+
+    # ---- phase 3
+    frames, u, v = _video(854, 480, 24)
+    print("[3] kernels vs plain versions at 480p")
+    k1 = check_k1(dev, frames[0])
+    k2, k3 = check_inter(dev, frames)
+    k4 = check_k4(dev, frames, u, v)
+    f10 = [f.astype(np.uint16) << 2 for f in frames[:5]]
+    check_k1(dev, f10[0], bd=10, cases=((16, 1), (32, 1)))
+    check_inter(dev, f10, bd=10, shapes=((32, 32), (64, 64)))
+    tf_agreement(dev, (f10[2], None, None),
+                 [(f10[i], None, None) for i in (0, 1, 3)], 10)
+    crop = [(f[:470, :838], u[:235, :419], v[:235, :419]) for f in frames[:4]]
+    tf_agreement(dev, crop[1], [crop[0], crop[2], crop[3]], 8)   # 838x470
+    sys.stdout.flush()
+
+    # ---- phase 4
+    print("[4] end to end: 854x480 x24, preset 10, CRF 35, device cuda")
+    encode(frames, u, v, dev, 8)                   # warm run, as bench.py
+    counters = (K.calls, I.calls["grids"], I.calls["depth"], T.calls)
+    for c in counters:
+        c["kernel"] = 0
+        c["plain"] = 0
+    profiling.reset()
+    t0 = time.perf_counter()
+    stream, pkts, psnr = encode(frames, u, v, dev, 24)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = [c["kernel"] for c in counters]
+    prof = profiling.snapshot()
+    dev_s = sum(x["s"] for k, x in prof.items() if k.startswith("device:"))
+    fps = 24 / dt
+    kbps = len(stream) * 8 * 25 / 24 / 1000
+    print(f"    fps {fps:.4f}  kbps {kbps:.1f}  PSNR-Y {psnr:.4f} dB  "
+          f"device_frac {dev_s / dt:.4f}  ({card})")
+    print("    stages: " + ", ".join(f"{k} {x['s']:.3f}s"
+                                    for k, x in sorted(prof.items())))
+    print(f"    launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} "
+          f"K4 {launches[3]}; plain calls "
+          f"{[c['plain'] for c in counters]}")
+    if min(launches) < 1:
+        fail("a kernel of the main path was never launched")
+    if not (np.isfinite(psnr) and psnr > 25.0 and len(stream) > 1000):
+        fail(f"implausible encode: {len(stream)} bytes, PSNR {psnr}")
+    shown = [p for p in pkts if p.recon is not None]
+    if have_dav1d:
+        W, H = 854, 480
+        for i, p in enumerate(shown):
+            d = dav1d.decode_nth(stream, i, W, H)
+            if not all(np.array_equal(d[k], p.recon[k]) for k in range(3)):
+                fail(f"frame {i} does not decode to the encoder's recon")
+        print(f"    dav1d: all {len(shown)} frames decode to the recon")
+    else:
+        print("    dav1d ABSENT on this machine: conformance NOT checked "
+              "(not a pass)")
+
+    rows = {}
+
+    def recording(orig, tag):
+        def get(self, key, timeout=600.0):
+            res = orig(self, key, timeout)
+            rows[(tag, key[1])] = res
+            return res
+        return get
+
+    orig_get = PL.InterSearchPipeline.get
+    PL.InterSearchPipeline.get = recording(orig_get, "cuda")
+    s_card, _, p_card = encode(frames, u, v, dev, 9)
+    PL.InterSearchPipeline.get = recording(orig_get, "cpu")
+    from svt_av1_psy_tpu.config import EncoderConfig
+    from svt_av1_psy_tpu_torch.api import Encoder
+
+    cfg_cpu = EncoderConfig(width=854, height=480, preset=10, stat_report=True,
+                            recon_enabled=True)
+    cfg_cpu.qp = 35
+    cfg_cpu.inter_me_backend = "device"
+    cfg_cpu.tf_backend = "device"
+    enc = Encoder(cfg_cpu, device="cpu").init()
+    pk = []
+    for i in range(9):
+        enc.send_picture(frames[i], u, v.copy())
+        while (p := enc.get_packet()) is not None:
+            pk.append(p)
+    enc.flush()
+    while (p := enc.get_packet()) is not None:
+        pk.append(p)
+    PL.InterSearchPipeline.get = orig_get
+    s_cpu = b"".join(p.data for p in pk)
+    p_cpu = float(np.mean([p.stats["psnr_y"] for p in pk if p.stats]))
+    agree = tot = 0
+    for (tag, idx), res in rows.items():
+        if tag != "cuda" or ("cpu", idx) not in rows:
+            continue
+        other = rows[("cpu", idx)]
+        for key, (r, _c) in res.items():
+            agree += int((r == other[key][0]).all(1).sum())
+            tot += r.shape[0]
+    share = agree / max(tot, 1)
+    print(f"    first 9 frames: card {len(s_card)} B PSNR {p_card:.4f} dB; "
+          f"cpu plain {len(s_cpu)} B PSNR {p_cpu:.4f} dB; identical "
+          f"{s_card == s_cpu}; decision rows agree {agree}/{tot}")
+    if (abs(len(s_card) - len(s_cpu)) > 0.02 * len(s_cpu)
+            or abs(p_card - p_cpu) > 0.05 or tot == 0 or share < 0.99):
+        fail("the card's encode strays from the plain versions' encode")
+
+    rec = {"kernels": [
+        {"name": "K1 intra_search", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/intra_search.cu",
+         "replaces": "svt_av1_psy_tpu/ops/intra_search.py:357",
+         "launches": launches[0], "max_abs_err": k1[0], "ms": k1[1],
+         "plain_ms": k1[2]},
+        {"name": "K2 ssd_grids", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/ssd_grids.cu",
+         "replaces": "svt_av1_psy_tpu/ops/inter_search.py:425",
+         "launches": launches[1], "max_abs_err": k2[0], "ms": k2[1],
+         "plain_ms": k2[2]},
+        {"name": "K3 inter_decide", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/inter_decide.cu",
+         "replaces": "svt_av1_psy_tpu/ops/inter_search.py:452",
+         "launches": launches[2], "max_abs_err": k3[0], "ms": k3[1],
+         "plain_ms": k3[2]},
+        {"name": "K4 tf", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/tf.cu",
+         "replaces": "svt_av1_psy_tpu/ops/tf.py:95",
+         "launches": launches[3], "max_abs_err": k4[0], "ms": k4[1],
+         "plain_ms": k4[2]},
+    ]}
+    print(card)
+    print(json.dumps(rec))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
