@@ -6,8 +6,8 @@
 Phases, each failing with a non-zero exit:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
      which native host libraries (mc, walk, ec, dav1d) this machine has;
-  2. builds the four kernels (nvcc, sm_90a) and prints each build's seconds
-     and its ptxas registers / spills;
+  2. builds the six kernel libraries (nvcc, sm_90a, all started together) and
+     prints each build's seconds and its ptxas registers / spills;
   3. holds each kernel against its plain PyTorch version on the card, at the
      480p preset-10 shapes of the main path, with seeded inputs, and times
      both with CUDA events:
@@ -17,11 +17,21 @@ Phases, each failing with a non-zero exit:
        K2 SSD grids     exact
        K3 inter decide  rows exact, at (32, 32) and at every rect shape
        K4 TF            |delta| <= 1 with >= 99.9 % of pixels equal
+       K5 transforms    exact, every (tx_size, tx_type) of tx_types_for_size
+                        (which holds every pair the commit reaches), 8 / 10-bit
+       K6 commit        lv, meta_out and rec exact, S 8/16/32/64, each compound
+                        and tx variant, RDOQ on, 8-bit, and 10-bit at S 32/64
   4. encodes the bench clip (854x480, 24 frames, preset 10, CRF 35) through
      Encoder(cfg, device="cuda"), prints fps, kbps, PSNR-Y and device_frac,
      checks that K1-K4 each launched, checks dav1d conformance where dav1d
      exists, and re-encodes the first 9 frames on the card and with
-     device="cpu" (plain versions) to compare size, PSNR and decision rows.
+     device="cpu" (plain versions) to compare size, PSNR and decision rows;
+  5. encodes the same clip with commit_backend="device" (K5 + K6 lift the
+     inter leaves' prediction, transforms, quantization and recon off the C
+     walk), prints fps, kbps, PSNR-Y, device_frac, the commit and host stage
+     times and the K5 / K6 launches, checks the stream equals phase 4's
+     (host commit), and checks 9-frame device- and host-commit card encodes
+     are byte-identical in stream and every recon.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. jax is blocked: the port must not need it.
@@ -236,8 +246,177 @@ def check_k4(dev, frames, u, v):
     return worst, ms, plain
 
 
+def check_k5(dev):
+    """K5 against its plain version on the card over every (tx_size,
+    tx_type) of tx_types_for_size, 8- and 10-bit; then times the main
+    path's shapes (32x32 luma x 128 lanes, 16x16 chroma x 256)."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu.codec.constants import TX_HEIGHT, TX_WIDTH
+    from svt_av1_psy_tpu.codec.transforms import tx_types_for_size
+    from svt_av1_psy_tpu_torch.ops import commit as C
+    from svt_av1_psy_tpu_torch.ops import txfm as X
+
+    swept = {(ts, int(tt)) for ts in range(19) for tt in tx_types_for_size(ts)}
+    reached = set()
+    for S in (8, 16, 32, 64):
+        tts_y, tts_uv = C._size_tts(S)
+        reached |= {(C._tx_size_of(S, S), t) for t in tts_y}
+        reached |= {(C._chroma_geom(S, S)[2], t) for t in tts_uv}
+    if not reached <= swept:
+        fail(f"K5 sweep misses commit pairs {sorted(reached - swept)}")
+    worst = 0
+    for bd in (8, 10):
+        peak = (1 << bd) - 1
+        for ts, tt in sorted(swept):
+            H, W = int(TX_HEIGHT[ts]), int(TX_WIDTH[ts])
+            rng = np.random.default_rng(ts * 16 + tt + bd)
+            res = torch.from_numpy(rng.integers(-peak, peak + 1, (64, H, W))
+                                   .astype(np.int32)).to(dev)
+            pred = torch.from_numpy(rng.integers(0, peak + 1, (64, H, W))
+                                    .astype(np.int32)).to(dev)
+            fk = X.forward_transform_2d(res, ts, tt)
+            fp = X.forward_transform_2d_ref(res, ts, tt)
+            ik = X.inverse_transform_add(fp, pred, ts, tt, bd)
+            ip = X.inverse_transform_add_ref(fp, pred, ts, tt, bd)
+            torch.cuda.synchronize()
+            err = max(int((fk - fp).abs().max()), int((ik - ip).abs().max()))
+            worst = max(worst, err)
+            if err:
+                fail(f"K5 disagrees with its plain version at tx_size {ts} "
+                     f"tx_type {tt} bd {bd}: max |d| {err}")
+    print(f"  K5 transforms: {len(swept)} (tx_size, tx_type) pairs x bd 8/10, "
+          f"fwd and inv+add, {len(reached)} commit pairs among them: "
+          f"max |d| {worst}")
+    rng = np.random.default_rng(5)
+    ry = torch.from_numpy(rng.integers(-60, 61, (128, 32, 32)).astype(np.int32)).to(dev)
+    rc = torch.from_numpy(rng.integers(-30, 31, (256, 16, 16)).astype(np.int32)).to(dev)
+    py = torch.full_like(ry, 128)
+    pc = torch.full_like(rc, 128)
+
+    def run(fwd, inv):
+        inv(fwd(ry, 3, 0), py, 3, 0, 8)
+        inv(fwd(rc, 2, 0), pc, 2, 0, 8)
+
+    ms = cuda_ms(lambda: run(X.forward_transform_2d, X.inverse_transform_add), 20)
+    plain = cuda_ms(lambda: run(X.forward_transform_2d_ref,
+                                X.inverse_transform_add_ref), 3)
+    return worst, ms, plain
+
+
+def k6_case(dev, frames, chroma, S, bd, seed):
+    """Group inputs cut from the bench clip: refs frames 0 and 2 (edge-padded
+    as the encoder pads them), source frame 1, _CHUNK_LANES[S] lanes on the
+    S grid with MVs near the clip's motion, a tenth of them padding lanes,
+    16 quant rows (qindex 60..250)."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu.codec.quant import build_plane_quant
+    from svt_av1_psy_tpu.codec.spec_tables import get_tables
+    from svt_av1_psy_tpu_torch.ops import commit as C
+
+    pad = 160
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if bd == 8 else np.uint16
+
+    def planes(k):
+        out = [frames[k], chroma[k][0], chroma[k][1]]
+        return [p.astype(dt) << (bd - 8) for p in out]
+
+    r0, sr, r1 = planes(0), planes(1), planes(2)
+    refs = [C._upload(np.stack([np.pad(a, pad, mode="edge"),
+                                np.pad(b, pad, mode="edge")]), dev)
+            for a, b in zip(r0, r1)]
+    srcs = [C._upload(p, dev) for p in sr]
+    H, W = frames[0].shape
+    B = C._CHUNK_LANES[S]
+    meta = np.zeros((B, 8), np.int32)
+    meta[:, 0] = rng.integers(0, H // S, B) * S
+    meta[:, 1] = rng.integers(0, W // S, B) * S
+    meta[:, 6] = rng.integers(0, 2, B)
+    # the clip pans by (2, 3) pels a frame: true MVs (16, 24) to frame 0 and
+    # (-16, -24) to frame 2 in 1/8 pel, jittered over every subpel phase
+    meta[:, 2:4] = np.where(meta[:, 6:7] == 0, (16, 24), (-16, -24))
+    meta[:, 4:6] = (-16, -24)
+    meta[:, 2:6] += rng.integers(-12, 13, (B, 4))
+    meta[:, 7] = rng.integers(0, 16, B)
+    meta[B - B // 10:, 0:2] = 1 << 24
+    qt = np.zeros((2, 16, 10), np.int32)
+    for i, q in enumerate(np.linspace(60, 250, 16).astype(int)):
+        for p in range(2):
+            pq = build_plane_quant(int(q), 0, 0, bd, 1, 140)
+            qt[p, i] = (pq.zbin[0], pq.zbin[1], pq.round[0], pq.round[1],
+                        pq.quant[0], pq.quant[1], pq.quant_shift[0],
+                        pq.quant_shift[1], pq.dequant[0], pq.dequant[1])
+    tab = get_tables()._raw
+    f8, f4 = (torch.from_numpy(np.asarray(tab[k], np.int32)).to(dev)
+              for k in ("interp_sub_pel_filters_8", "interp_sub_pel_filters_4"))
+    return (refs, srcs, torch.from_numpy(meta).to(dev),
+            torch.from_numpy(qt[0]).to(dev), torch.from_numpy(qt[1]).to(dev),
+            f8, f4), pad
+
+
+def check_k6(dev, frames, chroma, bd, sizes=(8, 16, 32, 64)):
+    """K6 against its plain version on the card: every (S, compound, vi)
+    group, RDOQ on; all three outputs bit-equal. Times the main path's S=32
+    groups (mean over compound x vi)."""
+    import torch
+
+    from svt_av1_psy_tpu_torch.ops import commit as C
+
+    worst, ms, plain, n = 0, 0.0, 0.0, 0
+    for S in sizes:
+        args, pad = k6_case(dev, frames, chroma, S, bd, S + bd)
+        for is_comp in (False, True):
+            for vi in range(len(C._size_tts(S)[0])):
+                fn = C._jit_group(S, is_comp, vi, bd, 3, True, pad)
+                tabs = C._vi_tables(S, 3, None, vi, dev)
+                k = fn(*args, *tabs)
+                p = C._group_program(*args, *tabs, **fn.keywords)
+                torch.cuda.synchronize()
+                err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(k, p))
+                eobs = p[1][:, :3]
+                print(f"  K6 {bd}-bit S={S:2d} comp={int(is_comp)} vi={vi}: "
+                      f"max |d| {err} over lv/meta/rec; luma eob 0 in "
+                      f"{int((eobs[:, 0] == 0).sum())}/{eobs.shape[0]} lanes, "
+                      f"over {int(p[1][:, 3].sum())}")
+                worst = max(worst, err)
+                if err:
+                    fail(f"K6 disagrees with its plain version at S={S} "
+                         f"comp={int(is_comp)} vi={vi} bd={bd}")
+                if S == 32 and bd == 8:               # the main path's groups
+                    ms += cuda_ms(lambda: fn(*args, *tabs), 20)
+                    plain += cuda_ms(lambda: C._group_program(
+                        *args, *tabs, **fn.keywords), 3)
+                    n += 1
+    return worst, ms / max(n, 1), plain / max(n, 1)
+
+
+def kernel_time_ms(fn, reps, prefixes):
+    """Device time of the kernels whose names start with `prefixes`, per
+    call of fn, from torch.profiler (launch gaps excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    tot = 0.0
+    for e in prof.key_averages():
+        if e.key.startswith(prefixes):
+            tot += getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+    return tot / 1000.0 / reps
+
+
 # ------------------------------------------------------------------ phase 4
-def encode(frames, u, v, device, n):
+def encode(frames, u, v, device, n, commit="auto"):
     import numpy as np
 
     from svt_av1_psy_tpu.config import EncoderConfig
@@ -245,7 +424,7 @@ def encode(frames, u, v, device, n):
 
     H, W = frames[0].shape
     cfg = EncoderConfig(width=W, height=H, preset=10, stat_report=True,
-                        recon_enabled=True)
+                        recon_enabled=True, commit_backend=commit)
     cfg.qp = 35
     enc = Encoder(cfg, device=device).init()
     pkts = []
@@ -284,9 +463,11 @@ def main():
     from svt_av1_psy_tpu.io import dav1d
     from svt_av1_psy_tpu_torch import device as D
     from svt_av1_psy_tpu_torch.ops import _build
+    from svt_av1_psy_tpu_torch.ops import commit as C
     from svt_av1_psy_tpu_torch.ops import inter_search as I
     from svt_av1_psy_tpu_torch.ops import intra_search as K
     from svt_av1_psy_tpu_torch.ops import tf as T
+    from svt_av1_psy_tpu_torch.ops import txfm as X
     from svt_av1_psy_tpu_torch.parallel import pipeline as PL
 
     # ---- phase 1
@@ -326,6 +507,21 @@ def main():
                  [(f10[i], None, None) for i in (0, 1, 3)], 10)
     crop = [(f[:470, :838], u[:235, :419], v[:235, :419]) for f in frames[:4]]
     tf_agreement(dev, crop[1], [crop[0], crop[2], crop[3]], 8)   # 838x470
+    sys.stdout.flush()
+    k5 = check_k5(dev)
+    sys.stdout.flush()
+    chroma = [(f[::2, ::2], f[1::2, 1::2]) for f in frames[:3]]
+    k6 = check_k6(dev, frames, chroma, 8)
+    check_k6(dev, frames, chroma, 10, sizes=(32, 64))
+    args, pad = k6_case(dev, frames, chroma, 32, 8, 40)
+    groups = [(C._jit_group(32, c, vi, 8, 3, True, pad),
+               C._vi_tables(32, 3, None, vi, dev))
+              for c in (False, True) for vi in (0, 1)]
+    k6_dev = kernel_time_ms(lambda: [fn(*args, *t) for fn, t in groups], 10,
+                            ("commit_", "txfm_")) / len(groups)
+    print(f"  K5 ms {k5[1]:.4f} (plain {k5[2]:.4f}); K6 group S=32 ms "
+          f"{k6[1]:.4f} (plain {k6[2]:.4f}), its kernels' device time "
+          f"{k6_dev:.4f} ms per group (profiler)")
     sys.stdout.flush()
 
     # ---- phase 4
@@ -416,6 +612,60 @@ def main():
     if (abs(len(s_card) - len(s_cpu)) > 0.02 * len(s_cpu)
             or abs(p_card - p_cpu) > 0.05 or tot == 0 or share < 0.99):
         fail("the card's encode strays from the plain versions' encode")
+    sys.stdout.flush()
+
+    # ---- phase 5
+    print("[5] end to end with commit_backend=device: 854x480 x24, preset 10, "
+          "CRF 35, device cuda")
+    encode(frames, u, v, dev, 8, commit="device")   # warm run
+    counters = (K.calls, I.calls["grids"], I.calls["depth"], T.calls, X.calls,
+                C.calls)
+    for c in counters:
+        c["kernel"] = 0
+        c["plain"] = 0
+    for k in C.leaves:
+        C.leaves[k] = 0
+    profiling.reset()
+    t0 = time.perf_counter()
+    stream5, pkts5, psnr5 = encode(frames, u, v, dev, 24, commit="device")
+    torch.cuda.synchronize()
+    dt5 = time.perf_counter() - t0
+    launches5 = [c["kernel"] for c in counters]
+    prof = profiling.snapshot()
+    dev_s = sum(x["s"] for k, x in prof.items() if k.startswith("device:"))
+    kbps5 = len(stream5) * 8 * 25 / 24 / 1000
+    print(f"    fps {24 / dt5:.4f}  kbps {kbps5:.1f}  PSNR-Y {psnr5:.4f} dB  "
+          f"device_frac {dev_s / dt5:.4f}  ({card})")
+    print("    stages: " + ", ".join(f"{k} {x['s']:.3f}s"
+                                    for k, x in sorted(prof.items())))
+    print(f"    launches K1 {launches5[0]} K2 {launches5[1]} K3 {launches5[2]} "
+          f"K4 {launches5[3]} K5 {launches5[4]} K6 {launches5[5]}; plain calls "
+          f"{[c['plain'] for c in counters]}")
+    print(f"    inter leaves {C.leaves['inter']}, sent to the device "
+          f"{C.leaves['lanes']}, levels kept for the walk {C.leaves['kept']} "
+          "(the walk recomputes the rest)")
+    if min(launches5[4:]) < 1:
+        fail("K5 or K6 was never launched by the device-commit encode")
+    if stream5 != stream:
+        fail("the device-commit stream differs from phase 4's host-commit "
+             "stream")
+    for a, b in zip(pkts, pkts5):
+        if (a.recon is None) != (b.recon is None) or (
+                a.recon is not None
+                and not all(np.array_equal(x, y)
+                            for x, y in zip(a.recon, b.recon))):
+            fail("a device-commit recon differs from phase 4's")
+    s_dev, pk_dev, _ = encode(frames, u, v, dev, 9, commit="device")
+    s_host, pk_host, _ = encode(frames, u, v, dev, 9, commit="host")
+    same = s_dev == s_host and len(pk_dev) == len(pk_host) and all(
+        (a.recon is None) == (b.recon is None)
+        and (a.recon is None or all(np.array_equal(x, y)
+                                    for x, y in zip(a.recon, b.recon)))
+        for a, b in zip(pk_dev, pk_host))
+    print(f"    first 9 frames: device commit {len(s_dev)} B, host commit "
+          f"{len(s_host)} B, stream and every recon identical {same}")
+    if not same:
+        fail("the device-commit and host-commit encodes differ")
 
     rec = {"kernels": [
         {"name": "K1 intra_search", "route": "cuda",
@@ -438,6 +688,16 @@ def main():
          "replaces": "svt_av1_psy_tpu/ops/tf.py:95",
          "launches": launches[3], "max_abs_err": k4[0], "ms": k4[1],
          "plain_ms": k4[2]},
+        {"name": "K5 txfm", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/txfm.cu",
+         "replaces": "svt_av1_psy_tpu/ops/txfm.py:110",
+         "launches": launches5[4], "max_abs_err": k5[0], "ms": k5[1],
+         "plain_ms": k5[2]},
+        {"name": "K6 commit", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/commit.cu",
+         "replaces": "svt_av1_psy_tpu/ops/commit.py:326",
+         "launches": launches5[5], "max_abs_err": k6[0], "ms": k6[1],
+         "plain_ms": k6[2]},
     ]}
     print(card)
     print(json.dumps(rec))

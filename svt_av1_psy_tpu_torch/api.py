@@ -10,9 +10,10 @@ changes, by line of the reference:
 - :69 `Encoder(config, device="cuda")` resolves the torch device
   (`device.resolve`: no card raises; nothing falls back to the CPU).
 - :101 `init` refuses every option whose device program is not ported yet:
-  `tpu_mesh_shape` (:219-227 are gone), `commit_backend="device"`,
-  `filters_backend="device"`, and `tpl_backend` other than "host" (its
-  "auto" reaches the device TPL on an accelerator host).
+  `tpu_mesh_shape` (:219-227 are gone), `filters_backend="device"`, and
+  `tpl_backend` other than "host" (its "auto" reaches the device TPL on an
+  accelerator host). `commit_backend="device"` runs the port's K5 + K6
+  commit on the encoder's device; its "auto" stays off, as in the reference.
 - :241-273 the inter-search pipeline runs on the encoder's device;
   `device_backend_default` asks whether that device is CUDA, and a failure
   to start raises instead of warning and running native.
@@ -82,8 +83,6 @@ def _chroma_qindex_delta(base_q: int, tune: int, color_primaries: int,
 _UNPORTED = (
     ("tpu_mesh_shape", lambda c: bool(c.tpu_mesh_shape),
      "the multi-device mesh (ROADMAP queue 1, item 10)"),
-    ("commit_backend", lambda c: c.commit_backend == "device",
-     "the device commit + transforms (ROADMAP queue 1, item 8)"),
     ("filters_backend", lambda c: c.filters_backend == "device",
      "device CDEF / LR search (ROADMAP queue 1, item 9)"),
     ("tpl_backend", lambda c: c.tpl_backend != "host",

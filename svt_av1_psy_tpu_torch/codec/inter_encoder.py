@@ -1,7 +1,7 @@
 """Inter frame encoder of the port.
 
 `InterFrameEncoder` subclasses the reference's
-(`svt_av1_psy_tpu/codec/inter_encoder.py`) and overrides only the four
+(`svt_av1_psy_tpu/codec/inter_encoder.py`) and overrides only the five
 methods that reach the reference's jax modules; each is the reference's
 body with these changes:
 
@@ -12,6 +12,10 @@ body with these changes:
   from the port's `ops/inter_search`.
 - `_pre_walk_multi` (:719): `IntraDecisions` comes from the port's
   `codec/intra_rdo`.
+- `_device_commit` (:634): runs the port's K5 + K6 commit
+  (`ops/commit.commit_frame`) on `shared["torch_device"]`. The reference's
+  `try/except` around the commit is gone: a failed commit raises and never
+  falls back to the host walk.
 
 Reference modules are imported absolutely; `ops` and `codec.intra_rdo`
 resolve to the port's twins.
@@ -521,3 +525,40 @@ class InterFrameEncoder(_ref.InterFrameEncoder):
         self.shared["inter_dec"] = dec_map
         self.shared["inter_decisions"] = dec_obj
         return True
+
+    def _device_commit(self):
+        """Device residual commit (ops/commit.py): batch-run pred/TX/
+        quant/recon for the decided inter leaves on the torch device; the
+        C walk then only does syntax + range coding for them."""
+        want = self.device_commit
+        if want is None:
+            # "auto" resolves to off, as in the reference
+            want = False
+        if want and self.plane_dq[1:3] != self.plane_dq[3:5]:
+            # the device commit shares one chroma quant row for u and v;
+            # per-plane u != v deltas (chroma_*_qindex_offset) take the
+            # host walk instead
+            want = False
+        if not want or getattr(self, "inter_dec", None) is None:
+            return
+        from svt_av1_psy_tpu.codec import walk_native
+
+        if not walk_native.eligible(self):
+            return
+        from svt_av1_psy_tpu.profiling import stage
+
+        if "pre_commit" in self.shared:    # LR re-encode / later tiles
+            res = self.shared["pre_commit"]
+        else:
+            from ..ops.commit import commit_frame
+
+            # exclusive profiling: the device:* sub-stages inside
+            # commit_frame account the device time; this span is host glue
+            with stage("host:commit_glue"):
+                res = commit_frame(self)
+            self.shared["pre_commit"] = res
+        if res is None:
+            return
+        self.pre_commit = res
+        for p in range(self.nplanes):
+            self.planes[p].recon[:] = res.recon[p]

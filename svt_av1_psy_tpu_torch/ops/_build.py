@@ -2,7 +2,7 @@
 
 Each kernel source is compiled by `nvcc` into its own shared library with a
 plain C interface and loaded with `ctypes` (no PyTorch headers: a build
-takes seconds, not minutes). Libraries land in `svt_av1_psy_tpu_torch/build/`
+takes seconds, not minutes); `build_all` starts every nvcc at once. Libraries land in `svt_av1_psy_tpu_torch/build/`
 under a name keyed by a hash of the sources and flags, so the first use in a
 fresh checkout builds everything and later uses load the cached file.
 
@@ -34,6 +34,8 @@ KERNELS = {
     "ssd_grids": "ssd_grids.cu",
     "inter_decide": "inter_decide.cu",
     "tf": "tf.cu",
+    "txfm": "txfm.cu",
+    "commit": "commit.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -67,8 +69,10 @@ def _build(name: str) -> Path:
     lib = BUILD / f"lib{name}_{key}.so"
     log = lib.with_suffix(".log")
     if lib.is_file():
-        BUILD_INFO[name] = {"seconds": 0.0, "cached": True,
-                            "ptxas": log.read_text() if log.is_file() else ""}
+        # a build of this process keeps its own record
+        BUILD_INFO.setdefault(name, {
+            "seconds": 0.0, "cached": True,
+            "ptxas": log.read_text() if log.is_file() else ""})
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
@@ -98,7 +102,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict:
-    """Build (or load) every kernel library; returns BUILD_INFO."""
+    """Build every kernel library at once (one nvcc per source, all started
+    together), then load them; returns BUILD_INFO."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        for f in [pool.submit(_build, name) for name in KERNELS]:
+            f.result()
     for name in KERNELS:
         load(name)
     return dict(BUILD_INFO)

@@ -4,13 +4,23 @@ script's refusal to run without a card.
 The end-to-end encode runs in a subprocess with `sys.modules["jax"] = None`,
 so any import of jax by the port (or by a reference module it reuses) fails
 the run.
+
+The reference's C libraries (walk, mc, ec, dav1d) build on first use into one
+path, with no lock and no atomic rename, and a failed load returns None (the
+encoder then takes the Python walk; mc_native never retries). pytest-xdist
+workers build them at the same moment, so `load_native_locked` loads them
+under a lock on a file in their build directory, retries while a concurrent
+writer may still be linking, and the tests assert they loaded: a failed build
+shows as such, not as a stream mismatch.
 """
 
+import fcntl
 import json
 import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -25,12 +35,42 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 W, H, N = 160, 128, 9
 
+
+def load_native_locked(root=ROOT, attempts=3):
+    """{name: loaded} for the reference's walk, mc, ec and dav1d libraries,
+    loaded under an exclusive lock on `native/build/load.lock`."""
+    from svt_av1_psy_tpu.bitstream import ec_native
+    from svt_av1_psy_tpu.codec import mc_native, walk_native
+    from svt_av1_psy_tpu.io import dav1d
+
+    mods = {"walk": walk_native, "mc": mc_native, "ec": ec_native,
+            "dav1d": dav1d}
+    build = Path(root) / "svt_av1_psy_tpu" / "native" / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    with open(build / "load.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        for i in range(attempts):
+            if i:
+                time.sleep(2.0)
+            for m in mods.values():
+                if m._lib is None and hasattr(m, "_tried"):
+                    m._tried = False      # mc_native caches a failed try
+            got = {k: m._load() is not None for k, m in mods.items()}
+            if all(got.values()):
+                break
+    return got
+
+
 _PORT_ENCODE = r"""
 import json, sys
 sys.modules["jax"] = None
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/tests")
 import numpy as np, torch
 torch.set_num_threads(2)
+from test_torch_encoder import load_native_locked
+native = load_native_locked()
+assert all(native.values()), native
 from bench import _video
 from svt_av1_psy_tpu.config import EncoderConfig
 from svt_av1_psy_tpu_torch.api import Encoder
@@ -89,6 +129,8 @@ def _reference_encode():
 
 
 def test_port_encodes_without_jax_and_matches_reference(tmp_path):
+    native = load_native_locked()
+    assert all(native.values()), f"native libraries failed to load: {native}"
     out = tmp_path / "port.npz"
     r = subprocess.run([sys.executable, "-c", _PORT_ENCODE, str(ROOT), str(out)],
                        capture_output=True, text=True, timeout=600, cwd=ROOT)
@@ -132,7 +174,6 @@ def test_refuses_cuda_without_a_card():
 
 @pytest.mark.parametrize("option,value,item", [
     ("tpu_mesh_shape", (2, 1), "item 10"),
-    ("commit_backend", "device", "item 8"),
     ("filters_backend", "device", "item 9"),
     ("tpl_backend", "device", "item 7"),
     ("tpl_backend", "auto", "item 7"),
@@ -144,6 +185,16 @@ def test_refuses_unported_options(option, value, item):
     setattr(cfg, option, value)
     with pytest.raises(SvtAv1Error, match=item):
         Encoder(cfg, device="cpu").init()
+
+
+def test_accepts_device_commit_on_cpu():
+    """commit_backend="device" is ported (K5 + K6): init accepts it."""
+    from svt_av1_psy_tpu_torch.api import Encoder
+
+    cfg = EncoderConfig(width=64, height=64)
+    cfg.commit_backend = "device"
+    enc = Encoder(cfg, device="cpu").init()
+    assert enc.config.commit_backend == "device"
 
 
 def test_device_resolution():
