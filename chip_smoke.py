@@ -6,11 +6,12 @@
 Phases, each failing with a non-zero exit:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
      which native host libraries (mc, walk, ec, dav1d) this machine has;
-  2. builds the six kernel libraries (nvcc, sm_90a, all started together) and
+  2. builds the nine kernel libraries (nvcc, sm_90a, all started together) and
      prints each build's seconds and its ptxas registers / spills;
   3. holds each kernel against its plain PyTorch version on the card, at the
-     480p preset-10 shapes of the main path, with seeded inputs, and times
-     both with CUDA events:
+     480p preset-10 shapes of the main path and the 1080p preset-6 shapes of
+     the quality path, with seeded inputs, and times both with CUDA events
+     (K6 and K9 also with the profiler's kernel time):
        K1 intra search  identical modes and tx, except blocks whose two best
                         costs are within 1e-5 relative (counted); also S 8 and
                         S 64 with 5 tx types
@@ -21,6 +22,13 @@ Phases, each failing with a non-zero exit:
                         (which holds every pair the commit reaches), 8 / 10-bit
        K6 commit        lv, meta_out and rec exact, S 8/16/32/64, each compound
                         and tx variant, RDOQ on, 8-bit, and 10-bit at S 32/64
+       K7 TPL           both stages exact on 960x540 decimated luma of the
+                        10-bit 1080p clip (the pair stage on K2's grids)
+       K8 CDEF          exact, luma 8x8 and chroma 4x4, 8- and 10-bit, sec
+                        0/1/2/4, pri 0 and variance-adjusted, 1080p planes
+       K9 SGR sweep     exact (int64 tile sums) on 1080p luma (T 256) and
+                        540p chroma (T 128), the 8 eps of preset 6 and all 16
+     and, at 10 bits, K1 at S 8 / 16 with 5 tx types and K3 at every shape;
   4. encodes the bench clip (854x480, 24 frames, preset 10, CRF 35) through
      Encoder(cfg, device="cuda"), prints fps, kbps, PSNR-Y and device_frac,
      checks that K1-K4 each launched, checks dav1d conformance where dav1d
@@ -31,12 +39,23 @@ Phases, each failing with a non-zero exit:
      walk), prints fps, kbps, PSNR-Y, device_frac, the commit and host stage
      times and the K5 / K6 launches, checks the stream equals phase 4's
      (host commit), and checks 9-frame device- and host-commit card encodes
-     are byte-identical in stream and every recon.
+     are byte-identical in stream and every recon;
+  6. the quality path: encodes 10 frames of the 1920x1080 clip at 10 bits,
+     preset 6, CRF 35, with tpl_backend and filters_backend "device" (K7-K9,
+     beside K1-K4), prints fps, kbps, PSNR-Y, device_frac, the stage times
+     and the launches, and checks that K7, K8 and K9 launched; writes the
+     stream and its recons' SHA-256 to chiprun_out/quality_1080p.* (and
+     checks them with dav1d where the machine has it); encodes the
+     same clip with both backends "host" for comparison (not a gate); and
+     checks that 5 frames of the 480p clip at 10 bits, preset 6, with the
+     device backends encode byte-identically on the card and with
+     device="cpu" (plain versions, the same hybrid search).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. jax is blocked: the port must not need it.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -415,17 +434,159 @@ def kernel_time_ms(fn, reps, prefixes):
     return tot / 1000.0 / reps
 
 
+def check_k7(dev, luma):
+    """K7 on the TPL shapes of the 1080p path: 960x540 decimated 8-bit luma
+    (frame 1 against frame 0), the pair stage on K2's grids."""
+    import torch
+
+    from svt_av1_psy_tpu_torch.ops import inter_search as I
+    from svt_av1_psy_tpu_torch.ops import tpl as TP
+
+    H, W = luma[0].shape
+    Hp, Wp = I.pad_dims(H, W)
+    src = I.prep_frame(I.upload_plane(luma[1], dev), Hp, Wp)[0]
+    ref = I.prep_frame(I.upload_plane(luma[0], dev), Hp, Wp)[1]
+    g = I.grids_stage(src, ref)
+    ik, ip = TP.tpl_intra_stage(src, H, W), TP.tpl_intra_stage_ref(src, H, W)
+    pk = TP.tpl_pair_stage(src, ref, *g, H, W)
+    pp = TP.tpl_pair_stage_ref(src, ref, *g, H, W)
+    torch.cuda.synchronize()
+    err = max(float((ik - ip).abs().max()), float((pk - pp).abs().max()))
+    m = ik.numel()
+    moved = int((pk[:2 * m] != 0).sum())
+    print(f"  K7 TPL {W}x{H} -> {Hp}x{Wp}, {m} units: max |d| {err} over intra "
+          f"and the packed pair vector ({moved} non-zero MV components)")
+    if err:
+        fail("K7 disagrees with its plain version")
+
+    def run(intra, pair):
+        intra(src, H, W)
+        pair(src, ref, *g, H, W)
+
+    ms = cuda_ms(lambda: run(TP.tpl_intra_stage, TP.tpl_pair_stage), 20)
+    plain = cuda_ms(lambda: run(TP.tpl_intra_stage_ref, TP.tpl_pair_stage_ref), 3)
+    dev_ms = kernel_time_ms(lambda: run(TP.tpl_intra_stage, TP.tpl_pair_stage),
+                            10, ("tpl_",))
+    plain_dev = kernel_time_ms(
+        lambda: run(TP.tpl_intra_stage_ref, TP.tpl_pair_stage_ref), 3, ("",))
+    return err, ms, plain, dev_ms, plain_dev
+
+
+def cdef_neighbourhoods(img, dev, bs):
+    """Every bs x bs block's (bs+4)^2 neighbourhood of one plane, padded with
+    CDEF_VERY_LARGE, gathered on the card (as the port's cdef_frame does)."""
+    import torch
+
+    from svt_av1_psy_tpu.codec.cdef import CDEF_VERY_LARGE
+
+    h, w = img.shape
+    pad = torch.full((h + 4, w + 4), CDEF_VERY_LARGE, dtype=torch.int32,
+                     device=dev)
+    pad[2:-2, 2:-2] = torch.from_numpy(img.astype("int32")).to(dev)
+    r = torch.arange(h // bs, device=dev).repeat_interleave(w // bs)
+    c = torch.arange(w // bs, device=dev).repeat(h // bs)
+    ys = r[:, None] * bs + torch.arange(bs + 4, device=dev)
+    xs = c[:, None] * bs + torch.arange(bs + 4, device=dev)
+    return pad[ys[:, :, None], xs[:, None, :]].contiguous()
+
+
+def check_k8(dev, y10, u10):
+    """K8 on whole 1080p planes: luma 8x8 (32400 blocks) and chroma 4x4, at 8
+    and 10 bits, pri 0 and variance-adjusted, sec 0/1/2/4."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu.codec.cdef import adjust_strength
+    from svt_av1_psy_tpu_torch.ops import filters as F
+
+    worst, timed = 0, None
+    for bd in (8, 10):
+        sh = bd - 8
+        for luma in (True, False):
+            img = (y10 if luma else u10) >> (10 - bd)
+            bs = 8 if luma else 4
+            nbs = cdef_neighbourhoods(img, dev, bs)
+            N = nbs.shape[0]
+            rng = np.random.default_rng(bd + luma)
+            dirs = rng.integers(0, 8, N).astype(np.int32)
+            var = rng.integers(0, 1 << 16, N).astype(np.int64)
+            damp = 3 + 2 + sh - (0 if luma else 1)
+            bad = 0
+            for pri in (0, 4):
+                p = pri << sh
+                pstr = (adjust_strength(p, var) if luma
+                        else np.full(N, p)).astype(np.int32)
+                d = torch.from_numpy(dirs if p else np.zeros_like(dirs)).to(dev)
+                pt = torch.from_numpy(pstr).to(dev)
+                for sec in (0, 1, 2, 4):
+                    args = (nbs, d, pt, sec << sh, damp, damp, bs, bs, bd)
+                    k = F.cdef_filter_blocks(*args)
+                    q = F.cdef_filter_blocks_ref(*args)
+                    torch.cuda.synchronize()
+                    err = int((k - q).abs().max())
+                    worst = max(worst, err)
+                    bad += int(err != 0)
+                    if luma and bd == 10 and pri == 4 and sec == 2:
+                        timed = args
+            print(f"  K8 CDEF {bd}-bit {'luma 8x8' if luma else 'chroma 4x4'} "
+                  f"N={N}: 8 (pri, sec) cases, {bad} differing; max |d| {worst}")
+            if bad:
+                fail(f"K8 disagrees with its plain version ({bd}-bit)")
+    ms = cuda_ms(lambda: F.cdef_filter_blocks(*timed), 20)
+    plain = cuda_ms(lambda: F.cdef_filter_blocks_ref(*timed), 3)
+    return worst, ms, plain
+
+
+def check_k9(dev, y10, u10):
+    """K9 on the 1080p luma plane (T 256) and the 540p chroma plane (T 128)
+    at 10 bits, against a seeded noisy copy (the post-CDEF plane's stand-in):
+    the 8 eps of preset 6, and all 16 on luma. Exact."""
+    import numpy as np
+    import torch
+
+    from svt_av1_psy_tpu_torch.ops import lr_search as L
+
+    worst, timed = 0.0, None
+    rng = np.random.default_rng(9)
+    for name, plane, T in (("luma", y10, 256), ("chroma", u10, 128)):
+        src = plane.astype(np.int32)
+        dgd = np.clip(src + rng.integers(-36, 37, src.shape), 0, 1023)
+        st = torch.from_numpy(src).to(dev)
+        dt = torch.from_numpy(dgd.astype(np.int32)).to(dev)
+        for eps in (tuple(range(0, 16, 2)),) + ((tuple(range(16)),)
+                                                if name == "luma" else ()):
+            k = L.sgr_stats(st, dt, T, 10, eps)
+            q = L.sgr_stats_ref(st, dt, T, 10, eps)
+            torch.cuda.synchronize()
+            err = float((k - q).abs().max())
+            worst = max(worst, err)
+            print(f"  K9 SGR {name} {src.shape[1]}x{src.shape[0]} T={T} "
+                  f"{len(eps)} eps -> {tuple(k.shape)}: max |d| {err}")
+            if err:
+                fail(f"K9 disagrees with its plain version ({name})")
+            if name == "luma" and len(eps) == 8:
+                timed = (st, dt, T, 10, eps)
+    ms = cuda_ms(lambda: L.sgr_stats(*timed), 10)
+    plain = cuda_ms(lambda: L.sgr_stats_ref(*timed), 2)
+    dev_ms = kernel_time_ms(lambda: L.sgr_stats(*timed), 10, ("sgr_",))
+    plain_dev = kernel_time_ms(lambda: L.sgr_stats_ref(*timed), 2, ("",))
+    return worst, ms, plain, dev_ms, plain_dev
+
+
 # ------------------------------------------------------------------ phase 4
-def encode(frames, u, v, device, n, commit="auto"):
+def encode(frames, u, v, device, n, commit="auto", preset=10, bd=8, **opts):
     import numpy as np
 
     from svt_av1_psy_tpu.config import EncoderConfig
     from svt_av1_psy_tpu_torch.api import Encoder
 
     H, W = frames[0].shape
-    cfg = EncoderConfig(width=W, height=H, preset=10, stat_report=True,
-                        recon_enabled=True, commit_backend=commit)
+    cfg = EncoderConfig(width=W, height=H, preset=preset, stat_report=True,
+                        recon_enabled=True, commit_backend=commit,
+                        input_depth=bd)
     cfg.qp = 35
+    for k, val in opts.items():
+        setattr(cfg, k, val)
     enc = Encoder(cfg, device=device).init()
     pkts = []
     for i in range(n):
@@ -440,6 +601,21 @@ def encode(frames, u, v, device, n, commit="auto"):
     stream = b"".join(p.data for p in pkts)
     psnr = [p.stats["psnr_y"] for p in pkts if p.stats]
     return stream, pkts, float(np.mean(psnr)) if psnr else float("nan")
+
+
+N_1080 = 10      # frames of the 1080p clip (the reference cell has 24)
+
+
+def quality_clip():
+    """The reference's 1080p cell clip (bench._video) at 10 bits: (luma
+    frames, u, v), each uint16."""
+    import numpy as np
+
+    from bench import _video
+
+    frames, u, v = _video(1920, 1080, N_1080)
+    return ([f.astype(np.uint16) << 2 for f in frames],
+            u.astype(np.uint16) << 2, v.astype(np.uint16) << 2)
 
 
 def main():
@@ -459,6 +635,7 @@ def main():
         fail(f"the repository is not beside this script ({e})")
     from svt_av1_psy_tpu import profiling
     from svt_av1_psy_tpu.bitstream import ec_native
+    from svt_av1_psy_tpu.codec.me import decimate
     from svt_av1_psy_tpu.codec import mc_native, walk_native
     from svt_av1_psy_tpu.io import dav1d
     from svt_av1_psy_tpu_torch import device as D
@@ -522,6 +699,21 @@ def main():
     print(f"  K5 ms {k5[1]:.4f} (plain {k5[2]:.4f}); K6 group S=32 ms "
           f"{k6[1]:.4f} (plain {k6[2]:.4f}), its kernels' device time "
           f"{k6_dev:.4f} ms per group (profiler)")
+    sys.stdout.flush()
+    print("[3] the 1080p preset-6 path's kernels, 10-bit clip")
+    q = quality_clip()
+    k7 = check_k7(dev, [decimate(p >> 2, 1) for p in q[0][:2]])
+    k8 = check_k8(dev, q[0][0], q[1])
+    k9 = check_k9(dev, q[0][0], q[1])
+    print(f"  K7 ms {k7[1]:.4f} (plain {k7[2]:.4f}), device time {k7[3]:.4f} "
+          f"(plain {k7[4]:.4f}): intra + pair stage; K8 ms {k8[1]:.4f} (plain "
+          f"{k8[2]:.4f}): 10-bit luma N=32400; K9 ms {k9[1]:.4f} (plain "
+          f"{k9[2]:.4f}), device time {k9[3]:.4f} (plain {k9[4]:.4f}): 1080p "
+          "luma, 8 eps; device times from the profiler, all kernels of the "
+          "call")
+    print("[3] K1 at S 8 / 16 with 5 tx types and K3 at every shape, 10-bit 480p")
+    check_k1(dev, f10[0], bd=10, cases=((8, 5), (16, 5)))
+    check_inter(dev, f10, bd=10)
     sys.stdout.flush()
 
     # ---- phase 4
@@ -667,6 +859,114 @@ def main():
     if not same:
         fail("the device-commit and host-commit encodes differ")
 
+    # ---- phase 6
+    from svt_av1_psy_tpu_torch.ops import filters as F
+    from svt_av1_psy_tpu_torch.ops import lr_search as L
+    from svt_av1_psy_tpu_torch.ops import tpl as TP
+
+    print(f"[6] the quality path: 1920x1080 x{N_1080}, 10-bit, preset 6, CRF "
+          "35, tpl_backend and filters_backend device, device cuda")
+    y6, u6, v6 = q
+    dev_opts = dict(tpl_backend="device", filters_backend="device")
+    counters6 = (K.calls, I.calls["grids"], I.calls["depth"], T.calls,
+                 TP.calls, F.calls, L.calls)
+    for c in counters6:
+        c["kernel"] = 0
+        c["plain"] = 0
+    profiling.reset()
+    t0 = time.perf_counter()
+    s6, pk6, psnr6 = encode(y6, u6, v6, dev, N_1080, preset=6, bd=10, **dev_opts)
+    torch.cuda.synchronize()
+    dt6 = time.perf_counter() - t0
+    launches6 = [c["kernel"] for c in counters6]
+    prof6 = profiling.snapshot()
+    dev_s = sum(x["s"] for k, x in prof6.items() if k.startswith("device:"))
+    kbps6 = len(s6) * 8 * 25 / N_1080 / 1000
+    print(f"    fps {N_1080 / dt6:.4f}  kbps {kbps6:.1f}  PSNR-Y {psnr6:.4f} dB  "
+          f"device_frac {dev_s / dt6:.4f}  wall {dt6:.3f} s  ({card})")
+    print("    stages: " + ", ".join(f"{k} {x['s']:.3f}s"
+                                    for k, x in sorted(prof6.items())))
+    print(f"    launches K1 {launches6[0]} K2 {launches6[1]} K3 {launches6[2]} "
+          f"K4 {launches6[3]} K7 {launches6[4]} K8 {launches6[5]} K9 "
+          f"{launches6[6]}; plain calls {[c['plain'] for c in counters6]}")
+    if min(launches6[4:]) < 1:
+        fail("K7, K8 or K9 was never launched by the quality-path encode")
+    if min(launches6[:4]) < 1:
+        fail("a kernel of K1-K4 was never launched by the quality-path encode")
+    shown6 = [p for p in pk6 if p.recon is not None]
+    if not (np.isfinite(psnr6) and psnr6 > 25.0 and len(s6) > 10000
+            and len(shown6) == N_1080
+            and all(p.recon[0].shape == (1080, 1920) for p in shown6)):
+        fail(f"implausible quality-path encode: {len(s6)} bytes, PSNR {psnr6}, "
+             f"{len(shown6)} frames shown")
+    # the stream and its recons' hashes, for a dav1d check where dav1d is
+    base = os.path.join(HERE, "chiprun_out", "quality_1080p")
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    with open(base + ".obu", "wb") as f:
+        f.write(s6)
+    with open(base + ".json", "w") as f:
+        json.dump({"width": 1920, "height": 1080, "recon_sha256": [
+            [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+             for x in p.recon] for p in shown6]}, f)
+    if have_dav1d:
+        for i, p in enumerate(shown6):
+            d = dav1d.decode_nth(s6, i, 1920, 1080)
+            if not all(np.array_equal(d[k], p.recon[k]) for k in range(3)):
+                fail(f"1080p frame {i} does not decode to the encoder's recon")
+        print(f"    dav1d: all {len(shown6)} frames decode to the recon")
+    else:
+        print(f"    dav1d ABSENT: stream and recon hashes written to {base}.*")
+    sys.stdout.flush()
+    profiling.reset()
+    t0 = time.perf_counter()
+    s6h, _, psnr6h = encode(y6, u6, v6, dev, N_1080, preset=6, bd=10,
+                            tpl_backend="host", filters_backend="host")
+    dt6h = time.perf_counter() - t0
+    prof6h = profiling.snapshot()
+    print(f"    host backends: fps {N_1080 / dt6h:.4f}  kbps "
+          f"{len(s6h) * 8 * 25 / N_1080 / 1000:.1f}  PSNR-Y {psnr6h:.4f} dB  "
+          f"wall {dt6h:.3f} s")
+    print("    stages: " + ", ".join(f"{k} {x['s']:.3f}s"
+                                    for k, x in sorted(prof6h.items())))
+    sys.stdout.flush()
+
+    # 480p, 10-bit, p6, 5 frames: the card against the plain versions on the
+    # host, both on the same hybrid search (the CPU encode is told that the
+    # device search is the default, as it is on the card) and the device TF
+    f480 = [f.astype(np.uint16) << 2 for f in frames[:5]]
+    u480, v480 = u.astype(np.uint16) << 2, v.astype(np.uint16) << 2
+    opts480 = dict(dev_opts, tf_backend="device")
+    rows.clear()
+    PL.InterSearchPipeline.get = recording(orig_get, "cuda")
+    s_c, pk_c, p_c = encode(f480, u480, v480, dev, 5, preset=6, bd=10, **opts480)
+    PL.InterSearchPipeline.get = recording(orig_get, "cpu")
+    orig_default = PL.device_backend_default
+    PL.device_backend_default = lambda device: True
+    try:
+        s_h, pk_h, p_h = encode(f480, u480, v480, "cpu", 5, preset=6, bd=10,
+                                **opts480)
+    finally:
+        PL.device_backend_default = orig_default
+        PL.InterSearchPipeline.get = orig_get
+    agree = tot = 0
+    for (tag, idx), res in rows.items():
+        if tag != "cuda" or ("cpu", idx) not in rows:
+            continue
+        for key, (r, _c) in res.items():
+            agree += int((r == rows[("cpu", idx)][key][0]).all(1).sum())
+            tot += r.shape[0]
+    same = s_c == s_h and all(
+        (a.recon is None) == (b.recon is None)
+        and (a.recon is None or all(np.array_equal(x, y)
+                                    for x, y in zip(a.recon, b.recon)))
+        for a, b in zip(pk_c, pk_h))
+    print(f"    480p 10-bit p6 x5: card {len(s_c)} B PSNR {p_c:.4f} dB; cpu "
+          f"plain {len(s_h)} B PSNR {p_h:.4f} dB; stream and recons identical "
+          f"{same}; decision rows agree {agree}/{tot}")
+    if not same or tot == 0:
+        fail("the card's 480p p6 encode differs from the plain versions'")
+    sys.stdout.flush()
+
     rec = {"kernels": [
         {"name": "K1 intra_search", "route": "cuda",
          "source": "svt_av1_psy_tpu_torch/csrc/intra_search.cu",
@@ -698,6 +998,21 @@ def main():
          "replaces": "svt_av1_psy_tpu/ops/commit.py:326",
          "launches": launches5[5], "max_abs_err": k6[0], "ms": k6[1],
          "plain_ms": k6[2]},
+        {"name": "K7 tpl", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/tpl.cu",
+         "replaces": "svt_av1_psy_tpu/ops/tpl.py:52",
+         "launches": launches6[4], "max_abs_err": k7[0], "ms": k7[1],
+         "plain_ms": k7[2]},
+        {"name": "K8 cdef", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/cdef.cu",
+         "replaces": "svt_av1_psy_tpu/ops/filters.py:30",
+         "launches": launches6[5], "max_abs_err": k8[0], "ms": k8[1],
+         "plain_ms": k8[2]},
+        {"name": "K9 lr_search", "route": "cuda",
+         "source": "svt_av1_psy_tpu_torch/csrc/lr_search.cu",
+         "replaces": "svt_av1_psy_tpu/ops/lr_search.py:136",
+         "launches": launches6[6], "max_abs_err": k9[0], "ms": k9[1],
+         "plain_ms": k9[2]},
     ]}
     print(card)
     print(json.dumps(rec))

@@ -10,15 +10,23 @@ changes, by line of the reference:
 - :69 `Encoder(config, device="cuda")` resolves the torch device
   (`device.resolve`: no card raises; nothing falls back to the CPU).
 - :101 `init` refuses every option whose device program is not ported yet:
-  `tpu_mesh_shape` (:219-227 are gone), `filters_backend="device"`, and
-  `tpl_backend` other than "host" (its "auto" reaches the device TPL on an
-  accelerator host). `commit_backend="device"` runs the port's K5 + K6
-  commit on the encoder's device; its "auto" stays off, as in the reference.
+  only `tpu_mesh_shape` now (:219-227 are gone). `commit_backend="device"`
+  runs the port's K5 + K6 commit on the encoder's device; its "auto" stays
+  off, as in the reference.
 - :241-273 the inter-search pipeline runs on the encoder's device;
   `device_backend_default` asks whether that device is CUDA, and a failure
   to start raises instead of warning and running native.
 - :276 the log line names the package and the device.
 - :431, :557 `temporal_filter` gets the encoder's device.
+- :448, :715 `tpl_analysis` is the port's twin (`rc.tpl`: K2 + K7) and gets
+  the encoder's device; its "auto" runs the device pass when that device is
+  CUDA. `tpl_qindex` and `tpl_sb_qindex_map` stay the reference's.
+- :1424 `cdef_frame` is the port's twin (`codec.cdef`: K8) and :1467
+  `pick_lr` the port's twin (`codec.restoration`: K9, no host fallback);
+  both get the encoder's device and run their device branch with
+  `filters_backend="device"`. The restoration search runs under a
+  `host:lr_search` stage (the reference leaves it unbracketed), and the
+  twins time their device parts as `device:cdef` and `device:lr_search`.
 - :644-647 a failed submit raises instead of returning None.
 - :1157 `search_intra_decisions` gets the encoder's device.
 - :1167 `inter_shared["torch_device"]` carries the device to the inter
@@ -83,10 +91,6 @@ def _chroma_qindex_delta(base_q: int, tune: int, color_primaries: int,
 _UNPORTED = (
     ("tpu_mesh_shape", lambda c: bool(c.tpu_mesh_shape),
      "the multi-device mesh (ROADMAP queue 1, item 10)"),
-    ("filters_backend", lambda c: c.filters_backend == "device",
-     "device CDEF / LR search (ROADMAP queue 1, item 9)"),
-    ("tpl_backend", lambda c: c.tpl_backend != "host",
-     "the device TPL pass (ROADMAP queue 1, item 7)"),
 )
 
 
@@ -445,7 +449,7 @@ class Encoder:
                                            for f in list(self._la_queue)[:3]]
         if (will_key and cfg.enable_tpl_la and self._pc.tpl and self._la_queue
                 and cfg.rate_control_mode == RateControlMode.CRF_CQP):
-            from svt_av1_psy_tpu.rc.tpl import tpl_analysis
+            from .rc.tpl import tpl_analysis
 
             tpl_win = 7 if cfg.preset <= 6 else 3
             group = [y] + [f[0] for f in list(self._la_queue)[:tpl_win]]
@@ -453,7 +457,8 @@ class Encoder:
 
             with _st("host:tpl"):
                 self._tpl = tpl_analysis(group, cfg.input_depth,
-                                         backend=cfg.tpl_backend)
+                                         backend=cfg.tpl_backend,
+                                         device=self.device)
         from svt_av1_psy_tpu.profiling import stage as _stage
 
         with _stage("tf"):
@@ -712,7 +717,7 @@ class Encoder:
 
         if (cfg.enable_tpl_la and self._pc.tpl and n >= 4
                 and cfg.rate_control_mode == _RCM.CRF_CQP):
-            from svt_av1_psy_tpu.rc.tpl import tpl_analysis
+            from .rc.tpl import tpl_analysis
 
             deps = [buf[i][0] for i in
                     sorted({0, (n - 1) // 2, max(n - 2, 0)})][:3]
@@ -721,7 +726,8 @@ class Encoder:
             with _st("host:tpl"):
                 tpl_r0 = tpl_analysis([buf[n - 1][0]] + deps,
                                       cfg.input_depth,
-                                      backend=cfg.tpl_backend)[0]
+                                      backend=cfg.tpl_backend,
+                                      device=self.device)[0]
 
         def enc_unshown(idx, lo, hi, depth):
             slot = free.pop()
@@ -1421,7 +1427,7 @@ class Encoder:
             cdef_y = cdef_uv = (0, 0)
             cdef_damping = 3
             if self._seq.enable_cdef:
-                from svt_av1_psy_tpu.codec.cdef import cdef_frame, pick_cdef_strengths
+                from .codec.cdef import cdef_frame, pick_cdef_strengths
 
                 pri, sec, cdef_damping = pick_cdef_strengths(
                     np.asarray(y), enc.planes[0].recon, enc.mi_skip, qindex,
@@ -1432,7 +1438,7 @@ class Encoder:
                            min(sec, 3), cdef_damping, cfg.input_depth,
                            backend=("device"
                                     if cfg.filters_backend == "device"
-                                    else "host"))
+                                    else "host"), device=self.device)
             return deblocked, lvl_y, lvl_uv, cdef_y, cdef_uv, cdef_damping
 
         from svt_av1_psy_tpu.profiling import stage as _stage
@@ -1464,7 +1470,7 @@ class Encoder:
             up_final = upscale_all([ps.recon for ps in enc.planes])
         lr_types = (0, 0, 0)
         if self._seq.enable_restoration and not allow_ibc and qindex > 0:
-            from svt_av1_psy_tpu.codec.restoration import RESTORE_NONE, apply_restoration, pick_lr
+            from .codec.restoration import RESTORE_NONE, apply_restoration, pick_lr
 
             # LR operates on the (upscaled, full-width) frame (spec order:
             # deblock -> cdef -> superres upscale -> loop restoration)
@@ -1484,20 +1490,21 @@ class Encoder:
             # 256px luma / 128px chroma units (the reference's
             # RESTORATION_UNITSIZE_MAX sizing): 16x fewer unit searches
             # than 64px units and less coefficient rate
-            rsts[0] = pick_lr(np.asarray(lr_src[0]), lr_recon[0],
-                              lr_deblocked[0], lr_w, cfg.height, 0,
-                              cfg.input_depth, unit_size=256,
-                              sgr_eps_step=self._pc.sgr_eps_step,
-                              backend=lr_backend)
-            if len(enc.planes) > 1:
-                cw, ch = (lr_w + 1) >> 1, (cfg.height + 1) >> 1
-                for plane, srcp in ((1, lr_src[1]), (2, lr_src[2])):
-                    rsts[plane] = pick_lr(
-                        np.asarray(srcp), lr_recon[plane],
-                        lr_deblocked[plane], cw, ch, 1, cfg.input_depth,
-                        unit_size=256,
-                        sgr_eps_step=self._pc.sgr_eps_step,
-                        backend=lr_backend)
+            with _stage("host:lr_search"):
+                rsts[0] = pick_lr(np.asarray(lr_src[0]), lr_recon[0],
+                                  lr_deblocked[0], lr_w, cfg.height, 0,
+                                  cfg.input_depth, unit_size=256,
+                                  sgr_eps_step=self._pc.sgr_eps_step,
+                                  backend=lr_backend, device=self.device)
+                if len(enc.planes) > 1:
+                    cw, ch = (lr_w + 1) >> 1, (cfg.height + 1) >> 1
+                    for plane, srcp in ((1, lr_src[1]), (2, lr_src[2])):
+                        rsts[plane] = pick_lr(
+                            np.asarray(srcp), lr_recon[plane],
+                            lr_deblocked[plane], cw, ch, 1, cfg.input_depth,
+                            unit_size=256,
+                            sgr_eps_step=self._pc.sgr_eps_step,
+                            backend=lr_backend, device=self.device)
             if any(r is not None and r.frame_type != RESTORE_NONE for r in rsts):
                 # LR syntax is coded per SB, so re-encode the tiles with the
                 # chosen units (the reference's EncDec/EC split; decisions are

@@ -1,9 +1,9 @@
 """Inter frame encoder of the port.
 
 `InterFrameEncoder` subclasses the reference's
-(`svt_av1_psy_tpu/codec/inter_encoder.py`) and overrides only the five
-methods that reach the reference's jax modules; each is the reference's
-body with these changes:
+(`svt_av1_psy_tpu/codec/inter_encoder.py`) and overrides the five methods
+that reach the reference's jax modules, and one that fails at some frame
+sizes; each is the reference's body with these changes:
 
 - `_closed_device_rows` (reference :363): runs the port's K2 + K3
   (`ops/inter_search.search_frame_np`) on `shared["torch_device"]`, with no
@@ -16,6 +16,14 @@ body with these changes:
   (`ops/commit.commit_frame`) on `shared["torch_device"]`. The reference's
   `try/except` around the commit is gone: a failed commit raises and never
   falls back to the host walk.
+- `_warp_pred` (:1275) and `_warp_upgrade_dec` (:1307): a luma leaf that
+  crosses the right or bottom edge of the 8-aligned frame (the forced rect
+  edge leaves where an edge superblock holds 24 columns or 16 rows, e.g.
+  854 wide or 144 high) is warped block by block, as chroma already is,
+  instead of being cut from the whole-plane warp, which ends at the
+  8-aligned edge. The reference's cut is shorter than the leaf and it
+  raises on the shape mismatch (preset <= 6 with a global-motion model);
+  inside the frame the two predictions are the same pixels.
 
 Reference modules are imported absolutely; `ops` and `codec.intra_rdo`
 resolve to the port's twins.
@@ -34,6 +42,42 @@ from svt_av1_psy_tpu.codec.mv_pred import ALTREF_FRAME, LAST_FRAME
 
 
 class InterFrameEncoder(_ref.InterFrameEncoder):
+    def _warp_pred(self, plane, px, py, pw, ph):
+        """Normative warp prediction from the LAST recon: luma slices the
+        whole-plane cache where the leaf lies inside it and warps the block
+        itself where it crosses the 8-aligned edge."""
+        if plane == 0:
+            wp = self._gm_warp_luma()[py: py + ph, px: px + pw]
+            if wp.shape == (ph, pw):
+                return wp
+            from svt_av1_psy_tpu.codec.warp import ROTZOOM, warp_plane
+
+            ref = self.refs[LAST_FRAME][0]
+            vis = ref[self.pad: self.pad + self.h, self.pad: self.pad + self.w]
+            return warp_plane(ROTZOOM, self.gm_wm, self.gm_shear, vis, px, py,
+                              pw, ph, 0, 0, self.bd)
+        return super()._warp_pred(plane, px, py, pw, ph)
+
+    def _warp_upgrade_dec(self, r, c, W, H, t, cost):
+        """Swap the kernel's decision for GLOBALMV-warp when the warp
+        prediction beats it (the reference's body, with the prediction from
+        `_warp_pred`)."""
+        if self.gm_wm is None or min(W, H) < 8:
+            return t
+        if t[0] == 1 and len(t) == 5 and int(t[2]) == _ref.GLOBALMV:
+            if t[1] != LAST_FRAME:
+                return t            # other refs keep identity gm (0, 0)
+            mv = self._gm_block(r, c, W, H)
+            return (1, LAST_FRAME, _ref.GLOBALMV, mv[0], mv[1])
+        x0, y0 = c * 4, r * 4
+        wp = self._warp_pred(0, x0, y0, W, H)
+        src = self.src[0][y0: y0 + H, x0: x0 + W]
+        sse = int(np.sum((src.astype(np.int64) - wp) ** 2))
+        if sse + self._psy_cost(src, wp) < cost:
+            mv = self._gm_block(r, c, W, H)
+            return (1, LAST_FRAME, _ref.GLOBALMV, mv[0], mv[1])
+        return t
+
     def _closed_device_rows(self):
         """CLOSED-LOOP device decide: the same staged K2 + K3 search the
         pipeline runs open-loop (ops/inter_search), but against this

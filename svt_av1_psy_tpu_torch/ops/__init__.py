@@ -1,1 +1,1 @@
-"""The port's kernels (K1-K4) with their plain PyTorch versions."""
+"""The port's kernels (K1-K9) with their plain PyTorch versions."""

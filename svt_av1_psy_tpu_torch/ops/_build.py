@@ -7,9 +7,9 @@ under a name keyed by a hash of the sources and flags, so the first use in a
 fresh checkout builds everything and later uses load the cached file.
 
 Flags: `sm_90a` (Hopper), `-O3`, no `--use_fast_math` (the TF weights need
-IEEE `expf` and IEEE division) and `-fmad=false` (no multiply-add
-contraction, so every float32 expression rounds as the plain PyTorch
-version rounds it). A missing `nvcc` or a failed build raises.
+IEEE `expf` and IEEE division, the SGR sweep IEEE float32 multiply, add
+and divide) and `-fmad=false` (no multiply-add contraction, so every
+float32 expression rounds as the plain PyTorch version rounds it). A missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ KERNELS = {
     "tf": "tf.cu",
     "txfm": "txfm.cu",
     "commit": "commit.cu",
+    "tpl": "tpl.cu",
+    "cdef": "cdef.cu",
+    "lr_search": "lr_search.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -120,7 +123,7 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-_COUNT_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()     # launch counters and the table cache
 
 
 def count(calls: dict, key: str):
@@ -128,6 +131,40 @@ def count(calls: dict, key: str):
     thread and on the inter-search worker)."""
     with _COUNT_LOCK:
         calls[key] += 1
+
+
+def on_cuda(t, kernel: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} takes cpu or cuda tensors, not {t.device}")
+    return t.device.type == "cuda"
+
+
+def need(t, shape, dtype, device, kernel: str):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` (what a kernel's C entry point assumes)."""
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{kernel} argument {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}: want {tuple(shape)} {dtype} contiguous "
+                         f"on {device}")
+
+
+_TABLES: dict = {}
+
+
+def table(name: str, array, device):
+    """A constant int32 table uploaded once per device."""
+    import numpy as np
+
+    key = (name, str(device))
+    with _COUNT_LOCK:
+        t = _TABLES.get(key)
+        if t is None:
+            t = _TABLES[key] = torch.from_numpy(
+                np.ascontiguousarray(array, np.int32)).to(device)
+        return t
 
 
 def ptr(t) -> ctypes.c_void_p:

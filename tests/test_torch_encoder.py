@@ -174,9 +174,6 @@ def test_refuses_cuda_without_a_card():
 
 @pytest.mark.parametrize("option,value,item", [
     ("tpu_mesh_shape", (2, 1), "item 10"),
-    ("filters_backend", "device", "item 9"),
-    ("tpl_backend", "device", "item 7"),
-    ("tpl_backend", "auto", "item 7"),
 ])
 def test_refuses_unported_options(option, value, item):
     from svt_av1_psy_tpu_torch.api import Encoder
@@ -185,6 +182,22 @@ def test_refuses_unported_options(option, value, item):
     setattr(cfg, option, value)
     with pytest.raises(SvtAv1Error, match=item):
         Encoder(cfg, device="cpu").init()
+
+
+@pytest.mark.parametrize("option,value", [
+    ("filters_backend", "device"),
+    ("tpl_backend", "device"),
+    ("tpl_backend", "auto"),
+])
+def test_accepts_ported_options(option, value):
+    """The device TPL (K7) and the device CDEF / SGR sweep (K8, K9) are
+    ported: init takes their backends on the CPU."""
+    from svt_av1_psy_tpu_torch.api import Encoder
+
+    cfg = EncoderConfig(width=64, height=64)
+    setattr(cfg, option, value)
+    enc = Encoder(cfg, device="cpu").init()
+    assert getattr(enc.config, option) == value
 
 
 def test_accepts_device_commit_on_cpu():
